@@ -18,7 +18,7 @@ import numpy as np
 
 def build_problem():
     import jax.numpy as jnp
-    from orbslam_jpminipc_tpu.solvers.ba import BAProblem
+    from orbslam_jpminipc.solvers.ba import BAProblem
 
     rng = np.random.default_rng(0)
     K, Pn = 6, 96
@@ -62,14 +62,14 @@ def main():
     import jax
 
     jax.distributed.initialize(f"localhost:{port}", nproc, pid)
-    from orbslam_jpminipc_tpu.parallel.multihost import (
+    from orbslam_jpminipc.parallel.multihost import (
         global_mesh, lift_sharded_problem,
     )
 
     assert jax.device_count() == nproc, jax.device_count()
 
-    from orbslam_jpminipc_tpu.solvers.ba import bundle_adjust
-    from orbslam_jpminipc_tpu.parallel.sharded_ba import (
+    from orbslam_jpminipc.solvers.ba import bundle_adjust
+    from orbslam_jpminipc.parallel.sharded_ba import (
         shard_ba_problem, sharded_bundle_adjust,
     )
 

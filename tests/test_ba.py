@@ -4,8 +4,8 @@ import jax
 import jax.numpy as jnp
 from scipy.spatial.transform import Rotation
 
-from orbslam_jpminipc_tpu.geometry import se3, camera
-from orbslam_jpminipc_tpu.solvers import ba
+from orbslam_jpminipc.geometry import se3, camera
+from orbslam_jpminipc.solvers import ba
 
 K4 = jnp.array([500.0, 500.0, 320.0, 240.0], jnp.float32)
 

@@ -2,7 +2,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from orbslam_jpminipc_tpu.solvers.ba_sim3 import Sim3BAProblem, bundle_adjust_sim3
+from orbslam_jpminipc.solvers.ba_sim3 import Sim3BAProblem, bundle_adjust_sim3
 
 
 def _make_problem(rng, K=4, P=64, scale_err=1.15, noise=0.0):

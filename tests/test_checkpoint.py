@@ -1,10 +1,10 @@
 """Checkpoint/resume: save the world, reload, relocalize into it."""
 import numpy as np
 
-from orbslam_jpminipc_tpu.io.checkpoint import save_slam, load_slam
-from orbslam_jpminipc_tpu.io.dataset import SyntheticSequence
-from orbslam_jpminipc_tpu.pipeline.system import Slam
-from orbslam_jpminipc_tpu.frontend.tracking import TrackState
+from orbslam_jpminipc.io.checkpoint import save_slam, load_slam
+from orbslam_jpminipc.io.dataset import SyntheticSequence
+from orbslam_jpminipc.pipeline.system import Slam
+from orbslam_jpminipc.frontend.tracking import TrackState
 from tests.test_pipeline import make_cfg, vocab  # noqa: F401 (fixture)
 
 

@@ -8,10 +8,10 @@ import numpy as np
 import cv2
 import pytest
 
-from orbslam_jpminipc_tpu.config import SlamConfig
-from orbslam_jpminipc_tpu.io.dataset import SyntheticSequence, TumDataset
-from orbslam_jpminipc_tpu.io.trajectory import ate_rmse
-from orbslam_jpminipc_tpu.pipeline.system import Slam
+from orbslam_jpminipc.config import SlamConfig
+from orbslam_jpminipc.io.dataset import SyntheticSequence, TumDataset
+from orbslam_jpminipc.io.trajectory import ate_rmse
+from orbslam_jpminipc.pipeline.system import Slam
 
 
 class TestTumDataset:
@@ -116,7 +116,7 @@ class TestDistortionEndToEnd:
 
 @pytest.fixture(scope="module")
 def vocab_small():
-    from orbslam_jpminipc_tpu.vocab.vocabulary import build_vocabulary
+    from orbslam_jpminipc.vocab.vocabulary import build_vocabulary
 
     rng = np.random.default_rng(0)
     return build_vocabulary(

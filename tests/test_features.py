@@ -5,7 +5,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from orbslam_jpminipc_tpu.ops import fast, orb, extractor, hamming
+from orbslam_jpminipc.ops import fast, orb, extractor, hamming
 
 
 def synthetic_image(rng, h=240, w=320):
@@ -147,8 +147,8 @@ class TestHamming:
 
     def test_pairwise_multidim_vs_oracle(self, rng):
         # the tree-vocabulary descent calls hamming_pairwise on (N, k, 32)
-        # batches — the shape class whose old 256-entry LUT gather
-        # serialized on TPU; assert the lax.population_count path is exact
+        # batches — the shape class an old 256-entry LUT gather handled
+        # badly; assert the lax.population_count path is exact
         d1 = rng.integers(0, 256, size=(17, 5, 32)).astype(np.uint8)
         d2 = rng.integers(0, 256, size=(17, 5, 32)).astype(np.uint8)
         got = np.asarray(jax.jit(hamming.hamming_pairwise)(jnp.array(d1), jnp.array(d2)))

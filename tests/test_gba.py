@@ -8,8 +8,8 @@ materializes (Optimizer.cc:38-152 semantics at full map size).
 import numpy as np
 import jax.numpy as jnp
 
-from orbslam_jpminipc_tpu.geometry import se3
-from orbslam_jpminipc_tpu.solvers import ba, gba
+from orbslam_jpminipc.geometry import se3
+from orbslam_jpminipc.solvers import ba, gba
 
 from test_ba import make_ba_problem, K4
 

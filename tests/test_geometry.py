@@ -12,7 +12,7 @@ import jax.numpy as jnp
 import pytest
 from scipy.spatial.transform import Rotation
 
-from orbslam_jpminipc_tpu.geometry import se3, sim3, camera, triangulate, epipolar
+from orbslam_jpminipc.geometry import se3, sim3, camera, triangulate, epipolar
 
 J = jax.jit  # alias
 exp_so3 = J(se3.exp_so3)

@@ -13,11 +13,11 @@ back onto the start through the essential graph.
 import numpy as np
 import pytest
 
-from orbslam_jpminipc_tpu.config import SlamConfig
-from orbslam_jpminipc_tpu.map.map_state import MapState
-from orbslam_jpminipc_tpu.map.keyframe_db import KeyFrameDatabase
-from orbslam_jpminipc_tpu.pipeline.loop_closing import LoopCloser
-from orbslam_jpminipc_tpu.vocab.vocabulary import build_vocabulary
+from orbslam_jpminipc.config import SlamConfig
+from orbslam_jpminipc.map.map_state import MapState
+from orbslam_jpminipc.map.keyframe_db import KeyFrameDatabase
+from orbslam_jpminipc.pipeline.loop_closing import LoopCloser
+from orbslam_jpminipc.vocab.vocabulary import build_vocabulary
 
 K4 = np.array([500.0, 500.0, 320.0, 240.0], np.float32)
 DRIFT = np.array([0.35, 0.0, 0.18], np.float32)
@@ -149,7 +149,7 @@ def test_essential_graph_edge_overflow_keeps_structural_edges(scene, monkeypatch
     connections + spanning tree + prior loop edges always survive; only
     the weakest strong-covisibility edges drop (the reference uses ALL
     edges, Optimizer.cc:1486-1664 — a fixed-shape program must rank)."""
-    from orbslam_jpminipc_tpu.solvers import essential_graph as eg
+    from orbslam_jpminipc.solvers import essential_graph as eg
 
     cfg, st, kfdb = scene
     cfg.eg_edges = 12  # force overflow: 9 KFs give 8 spanning + 1 loop
@@ -242,7 +242,7 @@ def test_correction_propagates_beyond_covisible_group():
     c_gt = gt_center(N - 1)
     S_cw_gt = (np.float32(1.0), np.eye(3, dtype=np.float32), -c_gt)
     S_lw = (np.float32(1.0), st.kf_R[0].copy(), st.kf_t[0].copy())
-    from orbslam_jpminipc_tpu.pipeline.loop_closing import _compose_np, _inverse_np
+    from orbslam_jpminipc.pipeline.loop_closing import _compose_np, _inverse_np
     s_cl, R_cl, t_cl = _compose_np(S_cw_gt, _inverse_np(S_lw))
 
     lc = LoopCloser(cfg, st, None)
@@ -297,17 +297,17 @@ class TestOrbitLoopEndToEnd:
         """
         import os
 
-        from orbslam_jpminipc_tpu.io.dataset import SyntheticSequence
-        from orbslam_jpminipc_tpu.io.trajectory import ate_rmse
-        from orbslam_jpminipc_tpu.pipeline.system import Slam
-        from orbslam_jpminipc_tpu.vocab.vocabulary import load_vocabulary
+        from orbslam_jpminipc.io.dataset import SyntheticSequence
+        from orbslam_jpminipc.io.trajectory import ate_rmse
+        from orbslam_jpminipc.pipeline.system import Slam
+        from orbslam_jpminipc.vocab.vocabulary import load_vocabulary
 
         cfg = SlamConfig(pipelined_tracking=False,
                      fx=500.0, fy=500.0, cx=320.0, cy=240.0,
                          k1=0.0, k2=0.0, p1=0.0, p2=0.0, n_features=1000)
         voc = load_vocabulary(os.path.join(
             os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-            "orbslam_jpminipc_tpu", "data", "vocab_synthetic.npz"))
+            "orbslam_jpminipc", "data", "vocab_synthetic.npz"))
         n = 300
         seq = SyntheticSequence(n_frames=n, trajectory="orbit", seed=0)
         slam = Slam(cfg, vocab=voc)
@@ -340,16 +340,16 @@ class TestOrbitLoopShippingConfig:
         machinery; this proves the configuration users actually get.)"""
         import os
 
-        from orbslam_jpminipc_tpu.io.dataset import SyntheticSequence
-        from orbslam_jpminipc_tpu.io.trajectory import ate_rmse
-        from orbslam_jpminipc_tpu.pipeline.system import Slam
-        from orbslam_jpminipc_tpu.vocab.vocabulary import load_vocabulary
+        from orbslam_jpminipc.io.dataset import SyntheticSequence
+        from orbslam_jpminipc.io.trajectory import ate_rmse
+        from orbslam_jpminipc.pipeline.system import Slam
+        from orbslam_jpminipc.vocab.vocabulary import load_vocabulary
 
         cfg = SlamConfig(pipelined_tracking=True, n_features=1000,
                          fx=500.0, fy=500.0, cx=320.0, cy=240.0)
         voc = load_vocabulary(os.path.join(
             os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-            "orbslam_jpminipc_tpu", "data", "vocab_tree64k.npz"))
+            "orbslam_jpminipc", "data", "vocab_tree64k.npz"))
         n = 300
         seq = SyntheticSequence(n_frames=n, trajectory="orbit", seed=0)
         slam = Slam(cfg, vocab=voc)
@@ -378,7 +378,7 @@ def test_culling_protects_gauge_and_loop_keyframes(scene):
     src/KeyFrame.cc:461-472). Close a loop, then drive culling over every
     keyframe with redundancy=0 (cull anything cullable) and assert the
     gauge KF and the loop anchors survive with their loop edges."""
-    from orbslam_jpminipc_tpu.map import culling
+    from orbslam_jpminipc.map import culling
 
     cfg, st, kfdb = scene
     lc = LoopCloser(cfg, st, kfdb)

@@ -3,7 +3,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from orbslam_jpminipc_tpu.ops import matching, hamming
+from orbslam_jpminipc.ops import matching, hamming
 
 
 def rand_desc(rng, n):

@@ -4,12 +4,12 @@ import copy
 import numpy as np
 import pytest
 
-from orbslam_jpminipc_tpu.native import (
+from orbslam_jpminipc.native import (
     get_lib, cull_redundant_keyframes_native, build_ba_obs_native,
     add_observations_native,
 )
-from orbslam_jpminipc_tpu.map.map_state import MapState
-from orbslam_jpminipc_tpu.map.culling import _cull_redundant_keyframes_py
+from orbslam_jpminipc.map.map_state import MapState
+from orbslam_jpminipc.map.culling import _cull_redundant_keyframes_py
 
 pytestmark = pytest.mark.skipif(get_lib() is None, reason="no native toolchain")
 

@@ -5,8 +5,8 @@ import jax.numpy as jnp
 import pytest
 from jax.sharding import Mesh
 
-from orbslam_jpminipc_tpu.solvers import ba
-from orbslam_jpminipc_tpu.parallel import shard_ba_problem, sharded_bundle_adjust
+from orbslam_jpminipc.solvers import ba
+from orbslam_jpminipc.parallel import shard_ba_problem, sharded_bundle_adjust
 from tests.test_ba import make_ba_problem
 
 
@@ -44,8 +44,8 @@ def test_sharded_ba_on_live_pipeline_problem():
     hand-built fixture): run the synthetic sequence, grab the mapper's own
     problem for the newest keyframe, and check the 8-way sharded solver
     reproduces the single-device optimum on it."""
-    from orbslam_jpminipc_tpu.io.dataset import SyntheticSequence
-    from orbslam_jpminipc_tpu.pipeline.system import Slam
+    from orbslam_jpminipc.io.dataset import SyntheticSequence
+    from orbslam_jpminipc.pipeline.system import Slam
     from tests.test_pipeline import make_cfg
 
     seq = SyntheticSequence(n_frames=45, trajectory="xyz", seed=3)
@@ -74,8 +74,8 @@ def test_local_ba_problem_python_fallback_matches_native(monkeypatch):
     them, so zeroed arrays silently corrupt local BA on machines without
     g++. Build the same problem with and without the native path and
     assert the observation sets are identical."""
-    from orbslam_jpminipc_tpu.io.dataset import SyntheticSequence
-    from orbslam_jpminipc_tpu.pipeline.system import Slam
+    from orbslam_jpminipc.io.dataset import SyntheticSequence
+    from orbslam_jpminipc.pipeline.system import Slam
     from tests.test_pipeline import make_cfg
 
     seq = SyntheticSequence(n_frames=30, trajectory="xyz", seed=3)
@@ -89,8 +89,8 @@ def test_local_ba_problem_python_fallback_matches_native(monkeypatch):
     prob_n, _, pts_n, src_n = slam.mapper.build_local_ba_problem(kf)
     feat_n, srckf_n = slam.mapper._last_obs_idx
 
-    import orbslam_jpminipc_tpu.pipeline.local_mapping as lm
-    import orbslam_jpminipc_tpu.native as native_mod
+    import orbslam_jpminipc.pipeline.local_mapping as lm
+    import orbslam_jpminipc.native as native_mod
     monkeypatch.setattr(native_mod, "build_ba_obs_native",
                         lambda *a, **k: None)
     prob_p, _, pts_p, src_p = slam.mapper.build_local_ba_problem(kf)

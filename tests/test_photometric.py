@@ -11,11 +11,11 @@ TumDataset reader end-to-end so a real fr1/xyz drop-in needs zero code.
 import numpy as np
 import pytest
 
-from orbslam_jpminipc_tpu.io.dataset import (
+from orbslam_jpminipc.io.dataset import (
     PhotometricAugment, SyntheticSequence, TumDataset, write_tum_sequence,
 )
-from orbslam_jpminipc_tpu.io.trajectory import ate_rmse
-from orbslam_jpminipc_tpu.pipeline.system import Slam
+from orbslam_jpminipc.io.trajectory import ate_rmse
+from orbslam_jpminipc.pipeline.system import Slam
 from tests.test_pipeline import make_cfg, run_sequence, vocab  # noqa: F401
 
 

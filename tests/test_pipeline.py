@@ -7,11 +7,11 @@ relocalization, and bound the trajectory error against ground truth.
 import numpy as np
 import pytest
 
-from orbslam_jpminipc_tpu.config import SlamConfig
-from orbslam_jpminipc_tpu.io.dataset import SyntheticSequence
-from orbslam_jpminipc_tpu.io.trajectory import ate_rmse, save_tum
-from orbslam_jpminipc_tpu.pipeline.system import Slam
-from orbslam_jpminipc_tpu.vocab.vocabulary import build_vocabulary
+from orbslam_jpminipc.config import SlamConfig
+from orbslam_jpminipc.io.dataset import SyntheticSequence
+from orbslam_jpminipc.io.trajectory import ate_rmse, save_tum
+from orbslam_jpminipc.pipeline.system import Slam
+from orbslam_jpminipc.vocab.vocabulary import build_vocabulary
 
 
 def make_cfg(**kw):
@@ -179,11 +179,11 @@ class TestShippingConfigRecovery:
         EPnP RANSAC, pose opt, two projection-search refine rungs)."""
         import os
 
-        from orbslam_jpminipc_tpu.vocab.vocabulary import load_vocabulary
+        from orbslam_jpminipc.vocab.vocabulary import load_vocabulary
 
         voc = load_vocabulary(os.path.join(
             os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-            "orbslam_jpminipc_tpu", "data", "vocab_tree64k.npz"))
+            "orbslam_jpminipc", "data", "vocab_tree64k.npz"))
         cfg = SlamConfig(pipelined_tracking=True, n_features=1000,
                          fx=500.0, fy=500.0, cx=320.0, cy=240.0)
         # n_frames sets the trajectory clock: 300 puts per-frame motion in

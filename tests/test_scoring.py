@@ -4,7 +4,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from orbslam_jpminipc_tpu.vocab import vocabulary as V
+from orbslam_jpminipc.vocab import vocabulary as V
 
 LOG_EPS = np.log(np.finfo(np.float64).eps)
 

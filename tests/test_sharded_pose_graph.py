@@ -5,9 +5,9 @@ import jax.numpy as jnp
 import pytest
 from jax.sharding import Mesh
 
-from orbslam_jpminipc_tpu.geometry import sim3
-from orbslam_jpminipc_tpu.solvers import essential_graph
-from orbslam_jpminipc_tpu.parallel import (
+from orbslam_jpminipc.geometry import sim3
+from orbslam_jpminipc.solvers import essential_graph
+from orbslam_jpminipc.parallel import (
     shard_essential_graph, sharded_optimize_essential_graph,
 )
 

@@ -4,8 +4,8 @@ import jax
 import jax.numpy as jnp
 from scipy.spatial.transform import Rotation
 
-from orbslam_jpminipc_tpu.geometry import se3, sim3, camera
-from orbslam_jpminipc_tpu.solvers import sim3solver, sim3_opt, essential_graph, pnp
+from orbslam_jpminipc.geometry import se3, sim3, camera
+from orbslam_jpminipc.solvers import sim3solver, sim3_opt, essential_graph, pnp
 
 K4 = jnp.array([500.0, 500.0, 320.0, 240.0], jnp.float32)
 
@@ -172,7 +172,7 @@ class TestEPnP:
         correspondences — same algorithm, same answer (to the GN noise
         floor)."""
         import cv2
-        from orbslam_jpminipc_tpu.solvers.epnp import epnp_pose
+        from orbslam_jpminipc.solvers.epnp import epnp_pose
         import jax.numpy as jnp
 
         K4 = np.array([500.0, 500.0, 320.0, 240.0], np.float32)

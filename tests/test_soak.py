@@ -11,9 +11,9 @@ of the same scene.
 import numpy as np
 import pytest
 
-from orbslam_jpminipc_tpu.io.dataset import SyntheticSequence
-from orbslam_jpminipc_tpu.io.trajectory import ate_rmse
-from orbslam_jpminipc_tpu.pipeline.system import Slam
+from orbslam_jpminipc.io.dataset import SyntheticSequence
+from orbslam_jpminipc.io.trajectory import ate_rmse
+from orbslam_jpminipc.pipeline.system import Slam
 from tests.test_pipeline import make_cfg, vocab  # noqa: F401 (fixture)
 
 
@@ -58,8 +58,7 @@ def test_soak_capacity_squeeze(vocab):
 @pytest.mark.slow
 def test_soak_long_run_stability(vocab):
     """3 laps (720 frames) at ordinary capacity: continuous tracking and
-    bounded drift across repeated loop passes (measured on TPU: 718/720
-    WORKING, ATE < 0.01 m, >= 1 loop closure)."""
+    bounded drift across repeated loop passes."""
     cfg = make_cfg()
     n = 240 * 3
     slam, states, tracked, ate = _run_laps(cfg, vocab)

@@ -5,8 +5,8 @@ import jax.numpy as jnp
 import pytest
 from scipy.spatial.transform import Rotation
 
-from orbslam_jpminipc_tpu.geometry import se3, camera
-from orbslam_jpminipc_tpu.solvers import initializer, pose_opt
+from orbslam_jpminipc.geometry import se3, camera
+from orbslam_jpminipc.solvers import initializer, pose_opt
 
 K4 = jnp.array([500.0, 500.0, 320.0, 240.0], jnp.float32)
 

@@ -8,9 +8,9 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from orbslam_jpminipc_tpu.vocab import tree as vtree
-from orbslam_jpminipc_tpu.vocab import vocabulary as voc
-from orbslam_jpminipc_tpu.map.keyframe_db import KeyFrameDatabase
+from orbslam_jpminipc.vocab import tree as vtree
+from orbslam_jpminipc.vocab import vocabulary as voc
+from orbslam_jpminipc.map.keyframe_db import KeyFrameDatabase
 
 
 def corrupt(rng, desc, n_bits):
@@ -77,7 +77,7 @@ class TestTreeDescent:
         wid2 = np.asarray(vtree.word_ids(v, jnp.array(q)))
         dt = (time.perf_counter() - t0) * 1e3
         np.testing.assert_array_equal(wid, wid2)
-        # steady-state transform budget: 50 ms on TPU; CPU CI headroom 500
+        # steady-state transform budget, with CPU headroom
         assert dt < 500.0, f"transform took {dt:.1f} ms at 1e6 words"
         # KeyFrameDatabase end-to-end at ORBvoc scale
         db = KeyFrameDatabase(v, max_kf=8)

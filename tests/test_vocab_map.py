@@ -2,9 +2,9 @@
 import numpy as np
 import jax.numpy as jnp
 
-from orbslam_jpminipc_tpu.vocab import vocabulary as voc
-from orbslam_jpminipc_tpu.map.map_state import MapState
-from orbslam_jpminipc_tpu.map.keyframe_db import KeyFrameDatabase
+from orbslam_jpminipc.vocab import vocabulary as voc
+from orbslam_jpminipc.map.map_state import MapState
+from orbslam_jpminipc.map.keyframe_db import KeyFrameDatabase
 
 
 def corrupt(rng, desc, nbits):
@@ -86,8 +86,8 @@ class TestKeyFrameDatabase:
         """A culled keyframe must leave the inverted index (KeyFrame.cc:
         586-587 -> KeyFrameDatabase::erase) so it stops competing as a
         loop/reloc candidate."""
-        from orbslam_jpminipc_tpu.config import SlamConfig
-        from orbslam_jpminipc_tpu.pipeline.local_mapping import LocalMapper
+        from orbslam_jpminipc.config import SlamConfig
+        from orbslam_jpminipc.pipeline.local_mapping import LocalMapper
 
         cfg = SlamConfig(max_kf=8, max_mp=128, n_features=40)
         st = MapState.create(max_kf=8, max_mp=128, n_feat=40, max_obs=8)
@@ -237,8 +237,8 @@ def test_force_free_keyframe_evicts_most_isolated():
     """Graceful capacity degradation: the eviction victim is the least
     covisibility-connected unprotected keyframe; the gauge KF and
     loop-edge holders are never chosen."""
-    from orbslam_jpminipc_tpu.map.map_state import MapState
-    from orbslam_jpminipc_tpu.map import culling
+    from orbslam_jpminipc.map.map_state import MapState
+    from orbslam_jpminipc.map import culling
 
     rng = np.random.default_rng(0)
     st = MapState.create(max_kf=8, max_mp=256, n_feat=32, max_obs=8)

@@ -31,20 +31,20 @@ def main(argv=None):
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
 
-    from orbslam_jpminipc_tpu.utils.jaxcache import enable_persistent_cache
+    from orbslam_jpminipc.utils.jaxcache import enable_persistent_cache
 
     enable_persistent_cache()
 
-    from orbslam_jpminipc_tpu.utils import tracing
+    from orbslam_jpminipc.utils import tracing
     if os.path.exists(args.events):
         os.remove(args.events)
     tracing._tracer = tracing.StageTracer(jsonl_path=args.events)
 
-    from orbslam_jpminipc_tpu.config import SlamConfig
-    from orbslam_jpminipc_tpu.io.dataset import SyntheticSequence
-    from orbslam_jpminipc_tpu.io.trajectory import ate_rmse
-    from orbslam_jpminipc_tpu.pipeline.system import Slam
-    from orbslam_jpminipc_tpu.vocab.vocabulary import load_vocabulary
+    from orbslam_jpminipc.config import SlamConfig
+    from orbslam_jpminipc.io.dataset import SyntheticSequence
+    from orbslam_jpminipc.io.trajectory import ate_rmse
+    from orbslam_jpminipc.pipeline.system import Slam
+    from orbslam_jpminipc.vocab.vocabulary import load_vocabulary
 
     cfg = SlamConfig(
         fx=500.0, fy=500.0, cx=320.0, cy=240.0,
@@ -60,7 +60,7 @@ def main(argv=None):
                     else "vocab_synthetic.npz")
             vocab = load_vocabulary(os.path.join(
                 os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                "orbslam_jpminipc_tpu", "data", name))
+                "orbslam_jpminipc", "data", name))
 
     n = args.frames
     seq = SyntheticSequence(n_frames=n, trajectory=args.seq, seed=args.seed)

@@ -9,7 +9,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from orbslam_jpminipc_tpu.config import SlamConfig
+from orbslam_jpminipc.config import SlamConfig
 
 
 def timeit(name, fn, n=10):
@@ -45,15 +45,15 @@ def main():
     d_ref = jnp.asarray(ref_slot)
     sf = jnp.asarray(cfg.scale_factors)
 
-    from orbslam_jpminipc_tpu.map.map_state import _point_attrs
+    from orbslam_jpminipc.map.map_state import _point_attrs
 
     # raw jit without packed transfer
-    import orbslam_jpminipc_tpu.map.map_state as ms
+    import orbslam_jpminipc.map.map_state as ms
 
     @jax.jit
     def attrs_dev(descs, valid, xyz, centers, levels, ref_slot, sfs):
         # replicate _point_attrs body by calling the undecorated fn
-        from orbslam_jpminipc_tpu.ops.hamming import unpack_bits
+        from orbslam_jpminipc.ops.hamming import unpack_bits
         n, O, _ = descs.shape
         bits = unpack_bits(descs.reshape(n * O, 32)).reshape(n, O, 256)
         dots = jnp.einsum("nob,npb->nop", bits.astype(jnp.float32), bits.astype(jnp.float32))
@@ -85,7 +85,7 @@ def main():
     B = 20
     d1 = jnp.asarray(rng.integers(0, 256, (F, 32), dtype=np.uint8))
     d2 = jnp.asarray(rng.integers(0, 256, (B, F, 32), dtype=np.uint8))
-    from orbslam_jpminipc_tpu.ops.hamming import hamming_matrix
+    from orbslam_jpminipc.ops.hamming import hamming_matrix
 
     @jax.jit
     def ham_only(d1, d2):
@@ -97,7 +97,7 @@ def main():
     xy2 = jnp.asarray(rng.uniform(0, 640, (B, F, 2)).astype(np.float32))
     F12 = jnp.asarray(rng.normal(0, 1, (B, 3, 3)).astype(np.float32))
 
-    from orbslam_jpminipc_tpu.geometry.epipolar import epipolar_dist2
+    from orbslam_jpminipc.geometry.epipolar import epipolar_dist2
 
     @jax.jit
     def epi_only(xy1, xy2, F12):
@@ -108,7 +108,7 @@ def main():
     timeit("tri: 20x epipolar dist", lambda: epi_only(xy1, xy2, F12))
 
     # triangulate_dlt batched: solve/det path
-    from orbslam_jpminipc_tpu.geometry.triangulate import triangulate_dlt, projection_matrix
+    from orbslam_jpminipc.geometry.triangulate import triangulate_dlt, projection_matrix
     R1 = jnp.eye(3)
     t1 = jnp.zeros(3)
     P1 = projection_matrix(R1, t1, jnp.asarray(cfg.K4))
@@ -122,7 +122,7 @@ def main():
     timeit("tri: 20x DLT(2000)", lambda: dlt_only(xy1, xy2))
 
     # masked_best2 over (B,F,F)
-    from orbslam_jpminipc_tpu.ops.matching import masked_best2
+    from orbslam_jpminipc.ops.matching import masked_best2
 
     @jax.jit
     def best2_only(d1, d2):
@@ -136,7 +136,7 @@ def main():
     timeit("tri: 20x ham+best2", lambda: best2_only(d1, d2))
 
     # ---- local BA decomposition --------------------------------------
-    from orbslam_jpminipc_tpu.solvers import ba
+    from orbslam_jpminipc.solvers import ba
     K = cfg.local_ba_kf + cfg.local_ba_fixed
     for P, Omax in ((4096, 16384), (2048, 8192)):
         kf_R = jnp.tile(jnp.eye(3, dtype=jnp.float32)[None], (K, 1, 1))

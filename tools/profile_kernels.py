@@ -14,12 +14,12 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from orbslam_jpminipc_tpu.config import SlamConfig
-from orbslam_jpminipc_tpu.map.device_map import (
+from orbslam_jpminipc.config import SlamConfig
+from orbslam_jpminipc.map.device_map import (
     DeviceMap, tri_kernel, fuse_kernel, local_ba_kernel,
 )
-from orbslam_jpminipc_tpu.map.map_state import MapState, _point_attrs
-from orbslam_jpminipc_tpu.pipeline.local_mapping import TRI_NEIGHBORS, FUSE_TARGETS
+from orbslam_jpminipc.map.map_state import MapState, _point_attrs
+from orbslam_jpminipc.pipeline.local_mapping import TRI_NEIGHBORS, FUSE_TARGETS
 
 
 def timeit(name, fn, n=10):
@@ -109,7 +109,7 @@ def main():
     ))
 
     # fused tracker step for reference
-    from orbslam_jpminipc_tpu.frontend.fused_track import FusedContext, MAX_SLICE
+    from orbslam_jpminipc.frontend.fused_track import FusedContext, MAX_SLICE
     ctx = FusedContext(cfg)
     ctx.set_pose(np.eye(3, dtype=np.float32), np.zeros(3, np.float32))
     pts = np.arange(1024)
